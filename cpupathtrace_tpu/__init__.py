@@ -1,6 +1,6 @@
-"""cpupathtrace_tpu — a TPU-native differentiable Monte Carlo path tracer.
+"""cpupathtrace_tpu — a differentiable Monte Carlo path tracer in JAX.
 
-A from-scratch JAX/Pallas/pjit rebuild with the capabilities of the C++
+A from-scratch JAX rebuild with the capabilities of the C++
 reference `johannesschaeufele/CPUPathTrace`: unbiased path tracing with
 importance-sampled BSDFs and next-event estimation, BVH-accelerated triangle
 and sphere geometry, OBJ meshes, thin-lens cameras with shaped apertures,

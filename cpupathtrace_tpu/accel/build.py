@@ -9,7 +9,7 @@ like the reference's one-object-per-leaf tree.
 
 The output is a *flat* SoA node array (lo/hi bounds, child indices, leaf prim
 index) instead of a pointer tree, so traversal is a gather-based wavefront op
-on TPU rather than pointer chasing.
+rather than pointer chasing.
 
 Implementation is iterative (explicit work stack) to handle multi-million-
 primitive meshes without Python recursion limits. A C++ builder for very large

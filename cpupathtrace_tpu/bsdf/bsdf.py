@@ -7,7 +7,7 @@ not reproduced.)
 The reference dispatches through virtual `BSDF` subclasses
 (ref: src/scene/propagation.cpp); here polymorphism becomes an integer type
 code per material and masked selects, so every lane takes the same (cheap)
-instruction stream — the TPU-native replacement for virtual dispatch.
+instruction stream — the batched replacement for virtual dispatch.
 
 Contracts preserved exactly:
   * propagate -> (next_ray, ray_factor, ray_pd)
@@ -28,7 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from ..scene.scene import SceneData, BSDF_LAMBERTIAN, BSDF_GLASS, BSDF_MIRROR
-from ..utils.math import PI, dot, local_to_global, normalize, reflect
+from ..utils.math import PI, dot, local_to_global, normalize, reflect, sqrt
 
 
 class RayMaterial(NamedTuple):
@@ -62,7 +62,7 @@ def gather_material(scene: SceneData, prim: jnp.ndarray) -> RayMaterial:
 def importance_sample_cosine(u1, u2, e=1.0):
     """Cosine-power hemisphere sample in tangent space with pdf
     (e+1) cos^e(theta) / 2pi (ref: propagation.cpp:11-21)."""
-    fac = jnp.sqrt(1.0 - jnp.power(u2, 2.0 / (e + 1.0)))
+    fac = sqrt(1.0 - jnp.power(u2, 2.0 / (e + 1.0)))
     cos_theta = jnp.power(u2, 1.0 / (e + 1.0))
     vec = jnp.stack(
         [fac * jnp.cos(2.0 * PI * u1), fac * jnp.sin(2.0 * PI * u1), cos_theta],
@@ -75,10 +75,10 @@ def importance_sample_cosine(u1, u2, e=1.0):
 def fresnel_reflectance(ray_dot, ri_leaving, ri_entering):
     """Unpolarized Fresnel reflectance + transmitted cosine; total internal
     reflection -> (1, 0) (ref: propagation.cpp:64-83)."""
-    sin_i = jnp.sqrt(jnp.maximum(1.0 - ray_dot * ray_dot, 0.0))
+    sin_i = sqrt(jnp.maximum(1.0 - ray_dot * ray_dot, 0.0))
     sin_t = ri_leaving / ri_entering * sin_i
     tir = sin_t >= 1.0
-    cos_t = jnp.sqrt(jnp.maximum(1.0 - sin_t * sin_t, 0.0))
+    cos_t = sqrt(jnp.maximum(1.0 - sin_t * sin_t, 0.0))
     r_par = (ri_entering * ray_dot - ri_leaving * cos_t) / (
         ri_entering * ray_dot + ri_leaving * cos_t
     )

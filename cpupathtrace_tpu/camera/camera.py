@@ -23,7 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core.rays import Rays
-from ..utils.math import PI, cross, dot, normalize
+from ..utils.math import PI, cross, dot, normalize, sqrt
 
 APERTURE_NONE = "none"
 APERTURE_CIRCULAR = "circular"
@@ -101,7 +101,7 @@ def make_camera(
 def _sample_circular(key, shape):
     """r = sqrt(u) polar warp (ref: camera.cpp:7-19)."""
     u = jax.random.uniform(key, shape + (2,))
-    r = jnp.sqrt(u[..., 0])
+    r = sqrt(u[..., 0])
     theta = 2.0 * PI * u[..., 1]
     return r * jnp.cos(theta), r * jnp.sin(theta)
 

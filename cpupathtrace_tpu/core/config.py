@@ -1,6 +1,6 @@
 """Render configuration.
 
-TPU-native analog of the reference's `RenderOptions` POD
+Frozen (hashable, jit-static) analog of the reference's `RenderOptions` POD
 (ref: include/PathTrace/worker.h:14-31), with two deliberate changes:
 
 * `allow_bias` is honest: the reference declares the flag but never reads it —
@@ -24,14 +24,14 @@ class RenderOptions:
     max_sample_count: int = 64
     epsilon: float = 1e-3
     allow_bias: bool = False
-    # TPU-specific knobs (static; affect compilation only, not the estimator).
+    # Device-side knobs (static; affect compilation only, not the estimator).
     max_depth: int = 64
     # Number of samples evaluated per device launch; the film accumulates
     # across launches. 0 = all samples in one launch.
     samples_per_launch: int = 0
     # Primitive count at or below which the dense (brute-force) intersector is
-    # used instead of BVH traversal; dense all-pairs intersection maps better
-    # onto the VPU for small scenes.
+    # used instead of BVH traversal; dense all-pairs intersection needs no
+    # traversal at all for small scenes.
     dense_intersect_threshold: int = 128
 
     def __post_init__(self):

@@ -1,6 +1,6 @@
 """Checkify debug-assertion layer.
 
-The TPU equivalent of the reference's debug assert macros
+The batched equivalent of the reference's debug assert macros
 (ref: include/PathTrace/base.h:59-80): `assertNormalized` (|len^2 - 1| <
 1e-4), `assertNonNegative` (negated comparison so NaN fails), and
 `assertFinite`. Pure-functional JAX removes the reference's data-race

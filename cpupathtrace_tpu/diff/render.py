@@ -153,7 +153,7 @@ def inverse_render(
     callback=None,
 ):
     """Recover material parameters by Adam gradient descent on the image loss
-    — the inverse-rendering demo (north star BASELINE.json config[3])."""
+    — the inverse-rendering demo (examples/inverse_render.py)."""
     import optax
 
     # NEE's 1/r^2 close-to-light singularity produces heavy-tailed gradient

@@ -1,7 +1,7 @@
 """Render checkpoint / resume.
 
 The reference has no checkpointing — a render is one blocking `processJob`
-call (SURVEY §5). For long TPU renders (and multi-host configs) the film
+call (SURVEY §5). For long device renders (and multi-host configs) the film
 state here is explicitly savable: a render is a sequence of spp chunks
 accumulating (pixel_sum, sample_count) under a deterministic per-chunk key
 schedule, so a resumed render produces bit-identical results to an

@@ -161,7 +161,6 @@ def bench_dragon_scene(
     dragon_tris: int = 200000,
     accel: str | None = None,
     cluster_size: int | None = None,
-    lean: bool = False,
 ) -> SceneData:
     """Box + glass dragon at scale 0.01, offset (0,-0.5,0)
     (ref: benchmark/main.cpp:59-105)."""
@@ -189,7 +188,7 @@ def bench_dragon_scene(
             smooth=True, as_batch=True,
         )
     b.add_triangles(tris, glass)
-    return b.build(accel=accel, cluster_size=cluster_size, lean=lean)
+    return b.build(accel=accel, cluster_size=cluster_size)
 
 
 def standin_dragon_arrays(

@@ -80,16 +80,6 @@ def get_lib():
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_int32),
         ]
-        lib.ptx_pack_pair_records.restype = None
-        lib.ptx_pack_pair_records.argtypes = [
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-            ctypes.POINTER(ctypes.c_float),
-            ctypes.c_int64, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_float),
-        ]
         lib.ptx_mesh_pipeline.restype = ctypes.c_int64
         lib.ptx_mesh_pipeline.argtypes = [
             ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
@@ -160,27 +150,6 @@ def build_bvh_native(prim_lo: np.ndarray, prim_hi: np.ndarray,
     if want_subtree_info:
         return base + (begin[:count], size[:count], dfs[:n])
     return base
-
-
-def pack_pair_records_native(v0, v1, v2, cull, prim, mat, n0, n1, n2,
-                             out: np.ndarray) -> bool:
-    """Threaded native pack of the in-kernel pair records straight into
-    `out` ([C, L, 128] f32, ZEROED). Returns False (out untouched) when
-    the native library is unavailable; callers fall back to the numpy
-    pack (accel/kernel_traverse._pack_pair_records_batch)."""
-    lib = get_lib()
-    if lib is None:
-        return False
-    c, l = out.shape[0], out.shape[1]
-    if not (out.flags.c_contiguous and out.dtype == np.float32):
-        return False
-    args = [np.ascontiguousarray(a, np.float32)
-            for a in (v0, v1, v2, cull, prim, mat, n0, n1, n2)]
-    lib.ptx_pack_pair_records(
-        *[_fptr(a) for a in args],
-        ctypes.c_int64(c), ctypes.c_int(l), _fptr(out),
-    )
-    return True
 
 
 def _dptr(a):

@@ -1,6 +1,6 @@
 // Native runtime components for cpupathtrace_tpu.
 //
-// The TPU compute path is JAX/XLA/Pallas; this library provides the
+// The device compute path is JAX/XLA; this library provides the
 // host-side runtime pieces that the C++ reference also implements natively
 // and that dominate scene-build time for multi-million-triangle meshes:
 //
@@ -12,7 +12,7 @@
 //   * ptx_parse_obj  — OBJ v/f parser with the reference's tolerant
 //     semantics (spec: reference src/scene/mesh.cpp:11-271).
 //
-// Exposed as a plain C ABI consumed via ctypes (no pybind11 in this image).
+// Exposed as a plain C ABI consumed via ctypes (no pybind11 dependency).
 #include <algorithm>
 #include <atomic>
 #include <cctype>
@@ -253,114 +253,6 @@ int ptx_build_bvh(const float* prim_lo, const float* prim_hi, int n,
     if (out_idx) std::memcpy(out_idx, idx.data(), n * sizeof(int32_t));
     *out_depth = max_depth;
     return next_node;
-}
-
-// ---------------------------------------------------------------------------
-// Pair-record packer
-// ---------------------------------------------------------------------------
-// Packs the in-kernel traversal pair records (layout spec:
-// accel/kernel_traverse.py pack_pair_record_np / _pack_pair_records_batch —
-// lanes 0:16 Moller-Trumbore pair math, 16 cull, 17 prim, 18 mat,
-// 19:28 per-vertex normals; rows 0/1 lanes 28:35 carry per-half AABBs).
-// Inputs: v0/v1/v2/n0/n1/n2 [c, l, 3] f32; cull/prim/mat [c, l] f32.
-// Output rec [c, l, 128] f32 must be ZERO-initialized by the caller
-// (np.zeros calloc pages): only the 28 feature lanes + half-bound lanes
-// are written here. Threaded over clusters — each cluster's record block
-// is independent. Replaces ~33 s of numpy staging passes at the
-// 7.2M-triangle scale with one streaming write.
-void ptx_pack_pair_records(const float* v0, const float* v1, const float* v2,
-                           const float* cull, const float* prim,
-                           const float* mat, const float* n0,
-                           const float* n1, const float* n2, int64_t c,
-                           int l, float* rec) {
-    constexpr int kCols = 128;
-    const int mid = (l / 16) * 8;  // sublane-aligned half split
-    const bool halves = mid >= 8 && (l - mid) >= 8;
-
-    auto pack_range = [&](int64_t begin, int64_t end) {
-        for (int64_t ci = begin; ci < end; ci++) {
-            float* r = rec + ci * static_cast<int64_t>(l) * kCols;
-            const int64_t base3 = ci * static_cast<int64_t>(l) * 3;
-            const int64_t base1 = ci * static_cast<int64_t>(l);
-            float half_lo[2][3] = {{FLT_MAX, FLT_MAX, FLT_MAX},
-                                   {FLT_MAX, FLT_MAX, FLT_MAX}};
-            float half_hi[2][3] = {{-FLT_MAX, -FLT_MAX, -FLT_MAX},
-                                   {-FLT_MAX, -FLT_MAX, -FLT_MAX}};
-            bool half_any[2] = {false, false};
-            for (int t = 0; t < l; t++) {
-                const float* a = v0 + base3 + 3 * t;
-                const float* b = v1 + base3 + 3 * t;
-                const float* d = v2 + base3 + 3 * t;
-                const float p = prim[base1 + t];
-                const bool live = p >= 0.0f;
-                float e1[3] = {b[0] - a[0], b[1] - a[1], b[2] - a[2]};
-                float e2[3] = {d[0] - a[0], d[1] - a[1], d[2] - a[2]};
-                float nx = e1[1] * e2[2] - e1[2] * e2[1];
-                float ny = e1[2] * e2[0] - e1[0] * e2[2];
-                float nz = e1[0] * e2[1] - e1[1] * e2[0];
-                if (!live) { nx = ny = nz = 0.0f; }
-                float* row = r + static_cast<int64_t>(t) * kCols;
-                row[0] = -nx; row[1] = -ny; row[2] = -nz;
-                row[3] = e2[0]; row[4] = e2[1]; row[5] = e2[2];
-                row[6] = a[1] * e2[2] - a[2] * e2[1];
-                row[7] = a[2] * e2[0] - a[0] * e2[2];
-                row[8] = a[0] * e2[1] - a[1] * e2[0];
-                row[9] = -e1[0]; row[10] = -e1[1]; row[11] = -e1[2];
-                row[12] = -(a[1] * e1[2] - a[2] * e1[1]);
-                row[13] = -(a[2] * e1[0] - a[0] * e1[2]);
-                row[14] = -(a[0] * e1[1] - a[1] * e1[0]);
-                row[15] = a[0] * nx + a[1] * ny + a[2] * nz;
-                row[16] = cull[base1 + t];
-                row[17] = p;
-                row[18] = mat[base1 + t];
-                const float* m0 = n0 + base3 + 3 * t;
-                const float* m1 = n1 + base3 + 3 * t;
-                const float* m2 = n2 + base3 + 3 * t;
-                row[19] = m0[0]; row[20] = m0[1]; row[21] = m0[2];
-                row[22] = m1[0]; row[23] = m1[1]; row[24] = m1[2];
-                row[25] = m2[0]; row[26] = m2[1]; row[27] = m2[2];
-                if (halves && live) {
-                    const int h = t < mid ? 0 : 1;
-                    half_any[h] = true;
-                    for (int ax = 0; ax < 3; ax++) {
-                        const float mn = std::min(a[ax], std::min(b[ax], d[ax]));
-                        const float mx = std::max(a[ax], std::max(b[ax], d[ax]));
-                        half_lo[h][ax] = std::min(half_lo[h][ax], mn);
-                        half_hi[h][ax] = std::max(half_hi[h][ax], mx);
-                    }
-                }
-            }
-            if (halves) {
-                for (int h = 0; h < 2; h++) {
-                    float* row = r + static_cast<int64_t>(h) * kCols;
-                    for (int ax = 0; ax < 3; ax++) {
-                        row[28 + ax] = half_any[h] ? half_lo[h][ax] : 0.0f;
-                        row[31 + ax] = half_any[h] ? half_hi[h][ax] : 0.0f;
-                    }
-                    row[34] = half_any[h] ? 1.0f : 0.0f;
-                }
-            }
-        }
-    };
-
-    unsigned hw = std::thread::hardware_concurrency();
-    const int n_threads =
-        static_cast<int>(std::max<int64_t>(1, std::min<int64_t>(
-            hw ? hw : 1, c / 256)));
-    if (n_threads <= 1) {
-        pack_range(0, c);
-        return;
-    }
-    std::vector<std::thread> threads;
-    threads.reserve(n_threads - 1);
-    const int64_t chunk = (c + n_threads - 1) / n_threads;
-    for (int i = 1; i < n_threads; i++) {
-        const int64_t b = i * chunk;
-        const int64_t e = std::min(c, b + chunk);
-        if (b < e) threads.emplace_back(pack_range, b, e);
-    }
-    pack_range(0, std::min(c, chunk));
-    for (auto& t : threads) t.join();
 }
 
 // ---------------------------------------------------------------------------

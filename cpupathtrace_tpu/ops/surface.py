@@ -13,7 +13,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from ..scene.scene import SceneData
-from ..utils.math import PI, cross, dot, length, normalize
+from ..utils.math import PI, cross, dot, length, normalize, sqrt
 
 
 def _gather_tri(scene: SceneData, idx):
@@ -60,7 +60,7 @@ def sample_prim_surface(scene: SceneData, prim, u1, u2):
     is_tri = prim < scene.n_tri
     v0, v1, v2, _, _, _, cull_tri = _gather_tri(scene, jnp.where(is_tri, prim, 0))
 
-    rr1 = jnp.sqrt(u1)
+    rr1 = sqrt(u1)
     pos_tri = (
         v0 * (1.0 - rr1)[..., None]
         + v1 * (rr1 * (1.0 - u2))[..., None]

@@ -1,11 +1,10 @@
 """Multi-host (multi-slice) runtime initialization.
 
 The reference is strictly single-process (SURVEY §2: pthreads + two mutexes
-are its entire "collective layer"). The TPU-native framework scales across
+are its entire "collective layer"). This framework scales across
 hosts with `jax.distributed`: every host runs the same SPMD program, the
-global `(dp, sp)` mesh spans all hosts' devices, tile shards ride ICI within
-a slice and DCN across slices, and the host-local image shards are gathered
-once per render.
+global `(dp, sp)` mesh spans all hosts' devices, and the host-local image
+shards are gathered once per render.
 
 Single-host (and the CI virtual-CPU mesh) skip initialization transparently.
 """
@@ -20,9 +19,9 @@ def initialize(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """Initialize the multi-host runtime. On TPU pods all arguments are
-    auto-detected from the environment; no-op when already initialized or
-    when running single-process."""
+    """Initialize the multi-host runtime with the given coordinator and
+    process layout; no-op when already initialized or when running
+    single-process."""
     if num_processes in (None, 1) and coordinator_address is None:
         try:
             if jax.process_count() > 1:
@@ -57,7 +56,7 @@ def host_local_rows(height: int) -> tuple[int, int]:
 
 def gather_image(local_rows: np.ndarray, height: int) -> np.ndarray:
     """Gather per-host row blocks into the full image on every host via a
-    device all-gather (DCN across hosts, ICI within).
+    device all-gather.
 
     process_allgather requires identical shapes on every process, but
     host_local_rows gives the last host fewer rows when height % p != 0 —

@@ -1,7 +1,7 @@
 """Failure detection + elastic recovery for long multi-device renders.
 
 The reference has no failure story at all (SURVEY §5: errors surface as
-I/O exceptions; the renderer is noexcept). For multi-chip TPU renders the
+I/O exceptions; the renderer is noexcept). For multi-device renders the
 framework's answer is built from two pieces that exist independently:
 
   * DETECTION — `ping_mesh`: a tiny psum over the render mesh executed on

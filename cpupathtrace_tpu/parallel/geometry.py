@@ -5,7 +5,7 @@ axis ("gp"); every device intersects the full ray wavefront against its
 cluster slice and per-shard nearest hits are combined with two `pmin`
 collectives per query (ops/intersect.py:_gp_combine). This is the
 tensor-parallel analog for scenes whose intersection tables exceed one
-chip's HBM — SURVEY §2's "primitive-sharded variant for giant scenes".
+device's memory — SURVEY §2's "primitive-sharded variant for giant scenes".
 
 Reference analog: none. The reference shares one `Scene` across its thread
 pool (src/worker.cpp:364-387) and is bounded by a single host's RAM; there
@@ -23,7 +23,7 @@ Design:
     combined (t, prim) is identical on every shard, the wavefront stays
     replicated bounce by bounce and needs no further collectives.
   * **Collectives**: 2 pmins ([R] f32 + [R] i32) per intersection query —
-    nearest-hit and NEE shadow queries alike — riding ICI.
+    nearest-hit and NEE shadow queries alike.
 
 The per-shard intersector is the dense-top sweep (ops/intersect.py:
 sweep_intersect): it is exact over any cluster subset, so min-over-shards
@@ -52,14 +52,6 @@ _GP_FIELDS = (
     "blk_v0", "blk_v1", "blk_v2", "blk_cull", "blk_prim", "blk_lo", "blk_hi"
 )
 
-# In-kernel traversal tables sharded on a stacked [n_shards, ...] leading
-# axis (shard_scene_kernel_geometry): each shard owns a contiguous
-# supercluster slice with its OWN upper tiers, so the per-shard Pallas
-# traversal is self-consistent over its subset.
-_GP_KRN_FIELDS = (
-    "krn_records", "krn_cl_bounds", "krn_sup_bounds", "krn_hyp_bounds"
-)
-
 
 def make_gp_mesh(devices=None, axis: str = "gp") -> Mesh:
     """1-D geometry-parallel mesh over `devices` (default: all)."""
@@ -71,8 +63,8 @@ def shard_scene_geometry(
     scene: SceneData, n_shards: int, axis: str = "gp"
 ) -> SceneData:
     """Host-side prep: pad the cluster axis to a multiple of `n_shards`,
-    drop the unused accelerator tables (per-prim BVH, binned/megakernel
-    tiers — the gp path intersects with the sweep), and mark the scene
+    drop the unused accelerator tables (per-prim BVH and cluster tree —
+    the gp path intersects with the sweep), and mark the scene
     with `gp_axis`. Pass the result through `gp_in_specs(scene)` to
     shard_map (or device_put each _GP_FIELDS leaf with a NamedSharding).
     """
@@ -116,14 +108,6 @@ def shard_scene_geometry(
         cl_left=jnp.full(1, -1, jnp.int32),
         cl_right=jnp.full(1, -1, jnp.int32),
         cl_leaf=jnp.full(1, -1, jnp.int32),
-        trv_blocks=jnp.zeros((1, 1, 8, 128), f32),
-        trv_bounds=jnp.zeros((1, 8), f32),
-        krn_records=jnp.zeros((1, 128, 128), f32),
-        krn_cl_bounds=jnp.zeros((1, 32, 128), f32),
-        krn_sup_bounds=jnp.zeros((1, 16, 128), f32),
-        krn_hyp_bounds=jnp.zeros((8, 128), f32),
-        krn_big_pair=jnp.zeros((1, 1), f32),
-        krn_cluster_size=0,
     )
 
 
@@ -131,87 +115,13 @@ def gp_in_specs(scene: SceneData, axis: str = "gp") -> SceneData:
     """A SceneData-shaped pytree of PartitionSpecs: cluster tables on
     `axis`, everything else replicated."""
     spec = jax.tree.map(lambda _: P(), scene)
-    if scene.krn_records.ndim == 4:  # stacked kernel-table shards
-        # The sweep/blk tables are placeholder stubs on this path — they
-        # stay replicated; only the stacked kernel tiers shard.
-        fields = {f: P(axis) for f in _GP_KRN_FIELDS}
-    else:
-        fields = {f: P(axis) for f in _GP_FIELDS}
-    return dataclasses.replace(spec, **fields)
-
-
-def shard_scene_kernel_geometry(
-    scene: SceneData, n_shards: int, axis: str = "gp"
-) -> SceneData:
-    """Host-side prep for the FAST geometry-parallel path: split the
-    in-kernel traversal tables (supercluster slices of krn_records /
-    krn_cl_bounds) into `n_shards` contiguous chunks, rebuild each chunk's
-    upper tiers (sup pages / hyper bounds — they must bound only the
-    chunk), and stack the per-shard tables on a new leading axis that
-    `gp_in_specs` shards over the mesh.
-
-    Memory per device: records + cluster bounds divide by n_shards (the
-    dominant ~460 B/triangle); the dense partition, shading tables
-    (tri_* — gathered per hit by global prim id), materials and lights
-    stay replicated. Per-shard exactness over a cluster subset makes the
-    pmin combine exact (ops/intersect.py:_gp_combine).
-
-    Ref analog: none — SURVEY §2's "primitive-sharded variant for giant
-    scenes"; the reference is bounded by one host's RAM."""
-    from ..accel.kernel_traverse import GROUP, tiers_from_cluster_bounds
-
-    if not scene.has_kernel_records:
-        raise ValueError(
-            "kernel-geometry sharding needs the in-kernel tables; build "
-            "the scene with accel='binned'"
-        )
-    if scene.krn_records.ndim == 4:
-        raise ValueError("scene is already kernel-geometry sharded")
-    clb = np.asarray(scene.krn_cl_bounds)
-    rec = np.asarray(scene.krn_records)
-    s = clb.shape[0]
-    s_l = -(-s // n_shards)
-    pad = s_l * n_shards - s
-    if pad:
-        clb = np.concatenate(
-            [clb, np.zeros((pad,) + clb.shape[1:], clb.dtype)]
-        )
-        rec_pad = np.zeros(
-            (pad * GROUP,) + rec.shape[1:], rec.dtype
-        )
-        rec_pad[:, :, 17] = -1.0  # _C_PRIM: padding records never hit
-        rec = np.concatenate([rec, rec_pad])
-    clb_s = clb.reshape(n_shards, s_l, *clb.shape[1:])
-    rec_s = rec.reshape(n_shards, s_l * GROUP, *rec.shape[1:])
-    sups, hyps = zip(*(tiers_from_cluster_bounds(c) for c in clb_s))
-    return dataclasses.replace(
-        scene,
-        gp_axis=axis,
-        krn_records=jnp.asarray(rec_s),
-        krn_cl_bounds=jnp.asarray(clb_s),
-        krn_sup_bounds=jnp.asarray(np.stack(sups)),
-        krn_hyp_bounds=jnp.asarray(np.stack(hyps)),
-    )
-
-
-def unstack_kernel_shard(scene: SceneData) -> SceneData:
-    """Inside a shard_map body: peel the local leading length-1 axis off
-    the stacked kernel tables so the per-shard SceneData has the ranks the
-    Pallas traversal expects."""
-    return dataclasses.replace(
-        scene, **{
-            f: getattr(scene, f)[0]
-            for f in _GP_KRN_FIELDS
-        }
-    )
+    return dataclasses.replace(spec, **{f: P(axis) for f in _GP_FIELDS})
 
 
 def _trace_gp(camera, options, spp, scene, x, y, key):
     """Per-shard body. The key is NOT folded with the gp index: every
     shard must draw identical sample streams so the replicated estimator
     stays bitwise consistent after each pmin combine."""
-    if scene.krn_records.ndim == 4:
-        scene = unstack_kernel_shard(scene)
     p = x.shape[0]
     xs = jnp.tile(x, spp)
     ys = jnp.tile(y, spp)
@@ -245,16 +155,9 @@ def render_chunk_gp(
     `shard_scene_geometry(scene, mesh.shape[axis])`."""
     if scene.gp_axis != axis:
         raise ValueError(
-            f"scene.gp_axis={scene.gp_axis!r}; run shard_scene_geometry "
-            "(sweep path) or shard_scene_kernel_geometry (fast path) first"
+            f"scene.gp_axis={scene.gp_axis!r}; run shard_scene_geometry first"
         )
-    if scene.krn_records.ndim == 4:
-        if scene.krn_records.shape[0] != mesh.shape[axis]:
-            raise ValueError(
-                f"{scene.krn_records.shape[0]} kernel-table shards vs "
-                f"mesh axis {mesh.shape[axis]}"
-            )
-    elif scene.blk_lo.shape[0] % mesh.shape[axis]:
+    if scene.blk_lo.shape[0] % mesh.shape[axis]:
         raise ValueError("cluster count not divisible by the gp axis")
     fn = jax.shard_map(
         partial(_trace_gp, camera, options, spp),

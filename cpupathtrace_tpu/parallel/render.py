@@ -1,6 +1,6 @@
 """SPMD sharded rendering over a (dp, sp) device mesh.
 
-TPU-native replacement for the reference's thread-pool scheduler
+SPMD replacement for the reference's thread-pool scheduler
 (ref: src/worker.cpp:328-414 doWorkParallel/processJob): the image's pixel
 axis is sharded over `dp` (each shard is the analog of a work-queue tile),
 samples-per-pixel are sharded over `sp`, and the per-pixel sample sums are
@@ -25,6 +25,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..camera.camera import Camera, shoot_rays
 from ..core.config import RenderOptions
 from ..integrator.film import pixel_camera_coords
+from ..integrator.wavefront import trace
 from ..scene.scene import SceneData
 
 
@@ -48,18 +49,12 @@ def _trace_shard(scene, camera, options, spp_local, differentiable, x, y, key,
         camera, xs, ys,
         1.0 / options.image_width, 1.0 / options.image_height, k_cam,
     )
-    # Same dispatch as the single-chip path: forward traces on TPU use the
-    # Pallas megakernel per shard when the scene fits its dense tables.
-    from ..integrator.film import _dispatch_trace
-
-    spectrum, collected = _dispatch_trace(
-        scene, rays, options, k_trace, differentiable
-    )
+    spectrum, collected = trace(scene, rays, options, k_trace, differentiable)
     spectrum = spectrum.reshape(k_batches, spp_local, p, 4)
     collected = collected.reshape(k_batches, spp_local, p)
     s = jnp.sum(jnp.where(collected[..., None], spectrum, 0.0), axis=1)
     c = jnp.sum(collected.astype(jnp.int32), axis=1)
-    # Reduce partial sample sums across the sample-parallel axis (ICI).
+    # Reduce partial sample sums across the sample-parallel axis.
     s = jax.lax.psum(s, "sp")
     c = jax.lax.psum(c, "sp")
     return s, c
@@ -224,10 +219,6 @@ def render_sharded_adaptive(
     over `mesh`. The per-tile progress callback matches the reference's
     tiles-done contract (ref: include/PathTrace/worker.h:74-79).
 
-    Known perf note: the sharded chunks launch sample-major (no Morton
-    pixel ordering), so binned large-mesh scenes give up the ~10%
-    pixel-major launch win the single-device `render()` gets from
-    `use_pixel_order` — correctness is unaffected.
     """
     from ..integrator.film import adaptive_constants, render_tile
 

@@ -4,7 +4,7 @@ The full SPMD "training step" for inverse rendering: forward wavefront render
 sharded over the (dp, sp) mesh, loss against a target image, reverse-mode
 gradients w.r.t. the replicated material table (the `psum` over shards is
 inserted by shard_map's transpose of the replicated-parameter broadcast —
-the TPU-native analog of a gradient all-reduce), then an SGD/Adam update.
+the SPMD analog of a gradient all-reduce), then an SGD/Adam update.
 """
 from __future__ import annotations
 

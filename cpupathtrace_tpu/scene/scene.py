@@ -1,6 +1,6 @@
 """Scene container: SoA device arrays + host-side builder.
 
-TPU-native inversion of the reference's pointer-based scene
+Array-native inversion of the reference's pointer-based scene
 (ref: include/PathTrace/scene/scene.h, src/scene/scene.cpp): virtual `Object`s
 become flat primitive arrays, `MaterialHandler` indirection becomes an integer
 material id per primitive, and the emissive-object registry + CDF
@@ -16,8 +16,6 @@ from __future__ import annotations
 import dataclasses
 from functools import partial
 
-import os
-
 import jax
 import numpy as np
 import jax.numpy as jnp
@@ -31,18 +29,11 @@ BSDF_LAMBERTIAN = 0
 BSDF_GLASS = 1
 BSDF_MIRROR = 2
 
-
-def _cull_uniformity(culls) -> int:
-    """Static cull classification for pair-record specialization:
-    0 = none cull, 1 = all cull, -1 = mixed (see
-    accel/kernel_traverse.py:_pair_quantities)."""
-    culls = np.asarray(culls, bool)
-    if not culls.any():
-        return 0
-    if culls.all():
-        return 1
-    return -1
-
+# Upper bound on the binned layout's cluster count: the builder coarsens
+# clusters until the cut fits. The value was sized for the scalar-memory
+# bounds table of a kernel written for another machine; it still bounds
+# the sweep's [rays, clusters] candidate matrix.
+MAX_CLUSTERS = 4096
 
 
 # Static (non-array) SceneData fields. Single source of truth shared by the
@@ -52,9 +43,7 @@ def _cull_uniformity(culls) -> int:
 STATIC_FIELDS = (
     "n_tri", "n_sph", "n_point_lights", "n_emissive",
     "emissive_sample_count", "accel", "bvh_depth", "cl_depth",
-    "cluster_size", "emissive_all_tri", "n_big", "krn_cluster_size",
-    "emissive_in_dense", "gp_axis", "krn_cull_mode",
-    "krn_big_cull_mode", "lean",
+    "cluster_size", "n_big", "gp_axis",
 )
 
 
@@ -74,9 +63,6 @@ STATIC_FIELDS = (
         "blk_v0", "blk_v1", "blk_v2", "blk_cull", "blk_prim",
         "blk_lo", "blk_hi",
         "big_v0", "big_v1", "big_v2", "big_cull", "big_prim",
-        "root_lo", "root_hi", "trv_blocks", "trv_bounds",
-        "krn_records", "krn_cl_bounds", "krn_sup_bounds", "krn_hyp_bounds",
-        "krn_big_pair",
     ],
     meta_fields=list(STATIC_FIELDS),
 )
@@ -124,8 +110,8 @@ class SceneData:
     bvh_right: jnp.ndarray  # [N] i32
     bvh_prim: jnp.ndarray  # [N] i32, -1 on internal nodes
 
-    # Two-level cluster BVH over triangles (TPU-native layout, accel/
-    # cluster.py): top tree over clusters, triangle data pre-blocked
+    # Two-level cluster BVH over triangles (accel/cluster.py): top tree
+    # over clusters, triangle data pre-blocked
     # [C, L] so each leaf visit dense-tests a full cluster per lane.
     cl_lo: jnp.ndarray  # [Nc,3]
     cl_hi: jnp.ndarray  # [Nc,3]
@@ -140,36 +126,16 @@ class SceneData:
     blk_lo: jnp.ndarray  # [C, 3] cluster bounds (sweep intersector)
     blk_hi: jnp.ndarray  # [C, 3]
 
-    # Binned-traversal partition (accel="binned", accel/pallas_traverse.py):
-    # "big" triangles (AABB diagonal above a fraction of the scene diagonal —
-    # walls, ground planes) are dense-tested for every ray; only the small
-    # mesh triangles live in the cluster blocks, giving the cluster set a
-    # tight root AABB that most rays never enter.
+    # Binned partition (accel="binned", ops/intersect.py
+    # binned_intersect_ref): "big" triangles (AABB diagonal above a
+    # fraction of the scene diagonal — walls, ground planes) are
+    # dense-tested for every ray; only the small mesh triangles live in the
+    # cluster blocks, so the cluster bounds stay tight.
     big_v0: jnp.ndarray  # [B,3]
     big_v1: jnp.ndarray  # [B,3]
     big_v2: jnp.ndarray  # [B,3]
     big_cull: jnp.ndarray  # [B] bool
     big_prim: jnp.ndarray  # [B] i32 global tri index, -1 padding
-    root_lo: jnp.ndarray  # [3] cluster-set root bounds
-    root_hi: jnp.ndarray  # [3]
-    # Pre-packed Mosaic-layout traversal tables (accel/pallas_traverse.py):
-    # blocks [C, L//64, 8, 128] (64 tris x 16 comps per (8,128) tile) and
-    # bounds [C, 8] (lo3 hi3 pad2) for the SMEM candidate scan.
-    trv_blocks: jnp.ndarray
-    trv_bounds: jnp.ndarray
-    # IN-KERNEL traversal tiers (accel/kernel_traverse.py) — an independent
-    # clustering of the small partition: pairwise records, cluster-bounds
-    # pages [S, 32, 128] (32 clusters per supercluster), supercluster
-    # bound pages [Hp, 16, 128] (16 superclusters per hyper), and hyper
-    # bounds [Hp8, 128] (the always-scanned tier). [1|8, ...] zeros when
-    # absent.
-    krn_records: jnp.ndarray
-    krn_cl_bounds: jnp.ndarray
-    krn_sup_bounds: jnp.ndarray
-    krn_hyp_bounds: jnp.ndarray
-    # Big-partition pair record [128, 128] for the megakernel's
-    # always-tested dense triangle set (walls/emitters); [1, 1] when absent.
-    krn_big_pair: jnp.ndarray
 
     # Static metadata (compile-time constants).
     n_tri: int
@@ -182,42 +148,15 @@ class SceneData:
     cl_depth: int
     cluster_size: int
     n_big: int
-    krn_cluster_size: int  # 0 = no in-kernel traversal tables
-    # True when every emissive primitive is a triangle (static; used by the
-    # megakernel dispatch, which handles emissive triangles only).
-    emissive_all_tri: bool
-    # True when every emissive primitive lives in the dense megakernel
-    # tables (spheres, or — for binned scenes — big-partition triangles).
-    # Required by the megakernel's in-kernel cluster traversal path.
-    emissive_in_dense: bool = True
     # Name of the mesh axis the cluster tables are sharded over
     # (geometry-parallel intersection, parallel/geometry.py). When set,
     # `scene_intersect` combines per-shard nearest hits with pmin
     # collectives; must be None outside shard_map.
     gp_axis: str | None = None
-    # Static cull uniformity of the in-kernel cluster records: 0 = no
-    # record triangle culls, 1 = all cull, -1 = mixed. Uniform modes let
-    # the megakernel drop the per-pair cull column from the record test
-    # (accel/kernel_traverse.py:_pair_quantities).
-    krn_cull_mode: int = -1
-    # Same for the always-tested big-partition / dense pair record.
-    krn_big_cull_mode: int = -1
-    # Lean build (build(lean=True)): only the in-kernel megakernel tables
-    # were packed — the per-prim BVH and the binned-wavefront cluster/
-    # trv tables are placeholders. Cuts multi-million-triangle scene
-    # builds ~2x for production ingest where only the megakernel path
-    # renders; the jnp/binned fallbacks raise instead of mis-rendering.
-    lean: bool = False
 
     @property
     def use_bvh(self) -> bool:
         return self.accel != "dense"
-
-    @property
-    def has_kernel_records(self) -> bool:
-        """True when the in-kernel cluster traversal tiers are packed
-        (binned scenes)."""
-        return self.krn_cluster_size > 0
 
     @property
     def n_prims(self) -> int:
@@ -315,29 +254,20 @@ class SceneBuilder:
         cluster_size: int | None = None,
         binned_threshold: int = 4096,
         big_diag_frac: float = 0.05,
-        lean: bool = False,
     ) -> SceneData:
         """Pack the scene into SoA device arrays.
 
         `accel` selects the intersector: "dense" (all rays x all prims,
         best for small scenes), "bvh" (per-primitive-leaf tree, the
         reference layout), "cluster" (two-level cluster tree), "sweep"
-        (dense-top candidate sweep), "binned" (bin-by-cluster Pallas
-        wavefront traversal — the TPU-native path for large meshes, see
-        docs/DESIGN_large_scenes.md). Default: dense below `dense_threshold`
+        (dense-top candidate sweep), "binned" (big triangles dense-tested,
+        the rest swept by cluster). Default: dense below `dense_threshold`
         primitives, binned above `binned_threshold` small triangles, sweep
         in between. `use_bvh` (bool) is the legacy switch mapping to
         "bvh"/"dense".
-
-        `lean=True` (binned scenes only) packs ONLY the in-kernel
-        megakernel tables: the per-prim BVH and the binned-wavefront
-        cluster/trv tables become placeholders, roughly halving
-        multi-million-triangle build time. The skipped fallback paths
-        raise loudly if dispatched (production-ingest mode; the 7.2M
-        benchmark scene uses it).
         """
         from ..accel.build import build_bvh
-        from ..accel.cluster import build_cluster_bvh, build_sah_clusters
+        from ..accel.cluster import build_cluster_bvh
 
         f32 = np.float32
         n_tri = sum(len(b) for b in self._batches)
@@ -467,10 +397,8 @@ class SceneBuilder:
             scene_diag = float(np.linalg.norm(scene_hi - scene_lo))
             big_mask = tri_diag > big_diag_frac * max(scene_diag, 1e-30)
             # Emissive triangles are forced into the dense partition (when
-            # few): the megakernel's NEE resolves emitter geometry from the
-            # dense tables, and keeping emitters out of the cluster set
-            # spares every shadow ray a cluster descent that ends just
-            # short of the light.
+            # few): keeping emitters out of the cluster set spares every
+            # shadow ray a cluster test that ends just short of the light.
             em_tri = np.asarray(
                 [p for p in em_prims if p < n_tri], np.int64
             )
@@ -485,12 +413,10 @@ class SceneBuilder:
                 import warnings
 
                 # The pointer-chasing per-lane walk is the reference's
-                # layout, kept for parity testing — it is the SLOWEST
-                # intersector on TPU (HBM gathers per step; BASELINE.md).
+                # layout, kept for parity testing.
                 warnings.warn(
-                    "use_bvh=True selects the per-lane BVH walk — the "
-                    "slowest intersector on TPU. Prefer accel=None "
-                    "(auto) or accel='binned' for large scenes.",
+                    "use_bvh=True selects the per-lane BVH walk; prefer "
+                    "accel=None (auto) or accel='binned' for large scenes.",
                     stacklevel=2,
                 )
                 accel = "bvh"
@@ -499,12 +425,8 @@ class SceneBuilder:
             elif n_prims <= dense_threshold:
                 accel = "dense"
             elif n_small >= binned_threshold:
-                # Large mesh: bin-by-cluster Pallas traversal (the only
-                # path that wins on TPU at this scale; BASELINE.md).
                 accel = "binned"
             else:
-                # Mid-size: the dense-top sweep beats per-lane cluster
-                # traversal ~2-4x (measured on v5e, BASELINE.md).
                 accel = "sweep"
         if accel not in ("dense", "bvh", "cluster", "sweep", "binned"):
             raise ValueError(f"unknown accel {accel!r}")
@@ -513,17 +435,9 @@ class SceneBuilder:
         if accel in ("cluster", "sweep", "binned") and n_tri == 0:
             accel = "dense" if n_prims <= dense_threshold else "bvh"
 
-        if lean and accel != "binned":
-            raise ValueError(
-                f"lean build requires the binned accel (got {accel!r}); "
-                "small scenes build their full tables in milliseconds"
-            )
-        if n_prims > 0 and not lean:
+        if n_prims > 0:
             bvh = build_bvh(prim_lo, prim_hi)
         else:
-            # Lean: the per-prim BVH serves only the accel='bvh' walk and
-            # parity tests — ~30 s at 7.2M prims for a table the
-            # megakernel never reads.
             bvh = build_bvh(np.zeros((1, 3), f32), np.zeros((1, 3), f32))
 
         # Cluster structure over triangles (spheres are dense-tested by the
@@ -533,69 +447,39 @@ class SceneBuilder:
         n_big = 0
         big_idx = np.zeros(0, np.int64)
         if accel == "binned":
-            from ..accel.pallas_traverse import MAX_CLUSTERS
-
             small_idx = np.flatnonzero(~big_mask)
             big_idx = np.flatnonzero(big_mask)
             n_big = int(big_idx.shape[0])
-            if lean:
-                cluster_size = 1  # trv clustering skipped below
-            elif cluster_size is None:
-                # Balance the SMEM candidate scan (cost ~ n_clusters) against
-                # per-candidate streaming (cost ~ cluster_size); keep the
-                # cluster count in the hundreds (docs/DESIGN_large_scenes.md).
-                # The in-kernel megakernel traversal uses its OWN independent
-                # 128-triangle clustering (krn_* tables below).
+            if cluster_size is None:
+                # Keep the cluster count in the hundreds: the candidate
+                # pass costs ~ n_clusters per ray, each candidate visit
+                # ~ cluster_size.
                 target = max(small_idx.shape[0] // 700, 128)
                 cluster_size = int(
                     min(512, max(128, 1 << int(np.ceil(np.log2(target)))))
                 )
-                # Giant meshes (beyond ~2M small triangles at 512/cluster):
-                # grow clusters so the cut fits the SMEM bounds budget (the
-                # BVH cut underfills, so aim well below the hard cap).
+                # Giant meshes: grow clusters so the cut fits MAX_CLUSTERS
+                # (the BVH cut underfills, so aim well below the cap).
                 floor = -(-int(small_idx.shape[0]) // (MAX_CLUSTERS // 2))
                 cluster_size = max(cluster_size, floor)
             cluster_size = max(64, (cluster_size + 63) // 64 * 64)
         elif accel in ("cluster", "sweep"):
             small_idx = np.arange(n_tri)
             if cluster_size is None:
-                cluster_size = 128  # v5e-tuned sweep default (BASELINE.md)
-        if lean:
-            # Only the megakernel's krn_* tiers get packed; the binned-
-            # wavefront cluster/blk tables are placeholders. Root bounds
-            # of the small partition still feed the sorted driver's
-            # coherence key.
-            blk_v0 = blk_v1 = blk_v2 = np.zeros((1, 1, 3), f32)
-            blk_cull = np.zeros((1, 1), bool)
-            blk_prim = np.full((1, 1), -1, np.int32)
-            blk_lo = np.zeros((1, 3), f32)
-            blk_hi = np.zeros((1, 3), f32)
-            cl_arrays = (
-                np.zeros((1, 3), f32), np.zeros((1, 3), f32),
-                np.full(1, -1, np.int32), np.full(1, -1, np.int32),
-                np.full(1, -1, np.int32),
-            )
-            cl_depth = 1
-            if small_idx.size:
-                root_lo = lo_tri[small_idx].min(axis=0).astype(f32)
-                root_hi = hi_tri[small_idx].max(axis=0).astype(f32)
-            else:
-                root_lo = np.full(3, np.inf, f32)
-                root_hi = np.full(3, -np.inf, f32)
-        elif accel in ("cluster", "sweep", "binned"):
+                cluster_size = 128
+        if accel in ("cluster", "sweep", "binned"):
             cl = build_cluster_bvh(
                 lo_tri[small_idx], hi_tri[small_idx], cluster_size=cluster_size
             )
             while accel == "binned" and cl.members.shape[0] > MAX_CLUSTERS:
-                # The cut emits more clusters than the candidate kernel's
-                # SMEM bounds table holds (possible for adversarial BVH
-                # shapes even with the sizing above): coarsen and retry.
+                # The cut emits more clusters than MAX_CLUSTERS (possible
+                # for adversarial BVH shapes even with the sizing above):
+                # coarsen and retry.
                 cluster_size *= 2
                 cl = build_cluster_bvh(
                     lo_tri[small_idx], hi_tri[small_idx],
                     cluster_size=cluster_size,
                 )
-            c = cl.members.shape[0]
             # Remap cluster members (small-set local) to global tri indices.
             members = np.where(
                 cl.members >= 0, small_idx[np.maximum(cl.members, 0)], -1
@@ -609,8 +493,6 @@ class SceneBuilder:
             blk_lo, blk_hi = cl.c_lo, cl.c_hi
             cl_arrays = (cl.lo, cl.hi, cl.left, cl.right, cl.cluster)
             cl_depth = cl.depth
-            root_lo = lo_tri[small_idx].min(axis=0).astype(f32)
-            root_hi = hi_tri[small_idx].max(axis=0).astype(f32)
         else:
             blk_v0 = blk_v1 = blk_v2 = np.zeros((1, 1, 3), f32)
             blk_cull = np.zeros((1, 1), bool)
@@ -624,8 +506,6 @@ class SceneBuilder:
             )
             cl_depth = 1
             cluster_size = 1
-            root_lo = np.full(3, np.inf, f32)
-            root_hi = np.full(3, -np.inf, f32)
 
         # Big-triangle dense set (binned only; empty rows otherwise).
         bpad = max(n_big, 1)
@@ -640,133 +520,6 @@ class SceneBuilder:
             big_v2[:n_big] = tri_v[2][big_idx]
             big_cull[:n_big] = tri_cull[big_idx]
             big_prim[:n_big] = big_idx
-
-        # Mosaic-layout traversal tables for the binned Pallas kernels.
-        if accel == "binned" and not lean:
-            from ..accel.pallas_traverse import pack_blocks_np, pack_bounds_np
-
-            trv_blocks = pack_blocks_np(blk_v0, blk_v1, blk_v2, blk_cull, blk_prim)
-            trv_bounds = pack_bounds_np(blk_lo, blk_hi)
-        else:
-            trv_blocks = np.zeros((1, 1, 8, 128), f32)
-            trv_bounds = np.zeros((1, 8), f32)
-        # In-kernel (megakernel) traversal tables: an independent
-        # 128-triangle clustering of the small partition, packed as
-        # supercluster/cluster-bounds/record tiers (accel/kernel_traverse.py).
-        krn_cluster_size = 0
-        krn_cull_mode = -1
-        krn_big_cull_mode = -1
-        krn_big_pair = np.zeros((1, 1), f32)
-        # The pair-record table costs ~512 B per small triangle; beyond the
-        # budget (default ~2.1M triangles = ~1.1 GB of records) skip the
-        # in-kernel tables — the scene still renders through the binned
-        # wavefront (accel/pallas_traverse.py), just not the megakernel.
-        krn_max = int(os.environ.get("PTX_KRN_MAX_TRIS", str(2 ** 21)))
-        if accel == "binned" and n_small < min(krn_max, 2 ** 24):
-            from ..accel.kernel_traverse import (
-                pack_kernel_tables_np,
-                pack_pair_record_np,
-            )
-
-            # 64-triangle records halve the per-visit VPU pair-test cost;
-            # the extra cluster count rides the (cheap) bitmask tiers.
-            # 56 tris = 7 sublane tiles per record: one tile less pair
-            # math per visit than 64 at nearly unchanged visit count —
-            # measured best on the dragon bench (docs/DESIGN_large_scenes).
-            krn_cluster = int(os.environ.get("PTX_KRN_CLUSTER", "56"))
-            if os.environ.get("PTX_KRN_SAH", "0") == "1":
-                # Binned-SAH clustering (experimental, default off): tighter
-                # boxes by total surface area (-3% on the dragon), but the
-                # extra clusters it emits cost more visits than the bounds
-                # save — measured ~8% SLOWER than the median cut on the
-                # dragon bench (docs/DESIGN_large_scenes.md round-3 notes).
-                kmem_local, kc_lo, kc_hi = build_sah_clusters(
-                    lo_tri[small_idx], hi_tri[small_idx],
-                    cluster_size=krn_cluster,
-                )
-            else:
-                kcl = build_cluster_bvh(
-                    lo_tri[small_idx], hi_tri[small_idx],
-                    cluster_size=krn_cluster,
-                )
-                kmem_local, kc_lo, kc_hi = kcl.members, kcl.c_lo, kcl.c_hi
-            kmembers = np.where(
-                kmem_local >= 0, small_idx[np.maximum(kmem_local, 0)], -1
-            ).astype(np.int32)
-            kidx = np.maximum(kmembers, 0)
-            (krn_records, krn_cl_bounds, krn_sup_bounds,
-             krn_hyp_bounds) = pack_kernel_tables_np(
-                tri_v[0][kidx], tri_v[1][kidx], tri_v[2][kidx],
-                tri_cull[kidx] & (kmembers >= 0), kmembers,
-                tri_n[0][kidx], tri_n[1][kidx], tri_n[2][kidx],
-                tri_mat[kidx], kc_lo, kc_hi,
-            )
-            krn_cluster_size = krn_cluster
-            krn_cull_mode = _cull_uniformity(tri_cull[kidx][kmembers >= 0])
-            if n_big <= 128:
-                bidx = np.maximum(big_prim, 0)
-                krn_big_pair = pack_pair_record_np(
-                    big_v0, big_v1, big_v2, big_cull, big_prim,
-                    tri_n[0][bidx], tri_n[1][bidx], tri_n[2][bidx],
-                    tri_mat[bidx],
-                )
-                krn_big_cull_mode = _cull_uniformity(big_cull[big_prim >= 0])
-        else:
-            krn_records = np.zeros((1, 128, 128), f32)
-            krn_cl_bounds = np.zeros((1, 32, 128), f32)
-            krn_sup_bounds = np.zeros((1, 16, 128), f32)
-            krn_hyp_bounds = np.zeros((8, 128), f32)
-            if 1 <= n_tri <= 128:
-                # Dense-pair record: small non-binned scenes run their
-                # whole triangle set as ONE pairwise record instead of the
-                # serial SMEM fori loop (per-iteration scalar loads stall
-                # ~0.7 us/ray/bounce — same rationale as the binned big
-                # partition, accel/kernel_traverse.py).
-                from ..accel.kernel_traverse import pack_pair_record_np
-
-                prim = np.arange(tpad, dtype=np.int32)
-                prim[n_tri:] = -1
-                krn_big_pair = pack_pair_record_np(
-                    tri_v[0], tri_v[1], tri_v[2],
-                    tri_cull & (prim >= 0), prim,
-                    tri_n[0], tri_n[1], tri_n[2], tri_mat,
-                )
-                krn_big_cull_mode = _cull_uniformity(tri_cull[:n_tri])
-
-        if accel == "binned":
-            emissive_in_dense = all(
-                bool(big_mask[p]) for p in em_prims if p < n_tri
-            )
-        else:
-            emissive_in_dense = True
-
-        if lean:
-            # A lean scene has no fallback intersector: the megakernel
-            # MUST be dispatchable or nothing can render it.
-            problems = []
-            if krn_cluster_size == 0:
-                problems.append(
-                    f"small partition ({n_small} tris) exceeds "
-                    f"PTX_KRN_MAX_TRIS"
-                )
-            if n_big > 128:
-                problems.append(
-                    f"big partition ({n_big} tris) exceeds the 128-row "
-                    "pair record"
-                )
-            if not emissive_in_dense:
-                problems.append("emissive prims outside the dense partition")
-            if krn_cl_bounds.shape[0] > 4608:
-                # pallas_megakernel._MAX_SUP (import here would be circular)
-                problems.append(
-                    f"{krn_cl_bounds.shape[0]} superclusters exceed the "
-                    "megakernel cap (4608); raise PTX_KRN_CLUSTER"
-                )
-            if problems:
-                raise ValueError(
-                    "lean build cannot serve the megakernel: "
-                    + "; ".join(problems)
-                )
 
         return SceneData(
             tri_v0=jnp.asarray(tri_v[0]), tri_v1=jnp.asarray(tri_v[1]), tri_v2=jnp.asarray(tri_v[2]),
@@ -794,15 +547,6 @@ class SceneBuilder:
             big_v0=jnp.asarray(big_v0), big_v1=jnp.asarray(big_v1),
             big_v2=jnp.asarray(big_v2), big_cull=jnp.asarray(big_cull),
             big_prim=jnp.asarray(big_prim),
-            root_lo=jnp.asarray(root_lo), root_hi=jnp.asarray(root_hi),
-            trv_blocks=jnp.asarray(trv_blocks),
-            trv_bounds=jnp.asarray(trv_bounds),
-            krn_records=jnp.asarray(krn_records),
-            krn_cl_bounds=jnp.asarray(krn_cl_bounds),
-            krn_sup_bounds=jnp.asarray(krn_sup_bounds),
-            krn_hyp_bounds=jnp.asarray(krn_hyp_bounds),
-            krn_big_pair=jnp.asarray(krn_big_pair),
-            krn_cluster_size=int(krn_cluster_size),
             n_big=n_big,
             n_tri=n_tri, n_sph=n_sph,
             n_point_lights=len(self._point_lights),
@@ -810,11 +554,6 @@ class SceneBuilder:
             emissive_sample_count=emissive_sample_count,
             accel=accel,
             bvh_depth=int(bvh.depth),
-            emissive_all_tri=bool(all(int(x) < n_tri for x in em_prims)),
-            emissive_in_dense=bool(emissive_in_dense),
             cl_depth=int(cl_depth),
             cluster_size=int(cluster_size),
-            krn_cull_mode=int(krn_cull_mode),
-            krn_big_cull_mode=int(krn_big_cull_mode),
-            lean=bool(lean),
         )

@@ -6,11 +6,23 @@ Functional equivalent of the reference's libpng codecs
     (ref: image_io.cpp:55-80)
   * write: round + clamp to 0..255, RGBA (ref: image_io.cpp:132-149)
 
-Uses Pillow for the codec itself; the value conversions match the reference.
+The writer encodes PNG with the standard library's zlib, so rendering
+and saving need no imaging package; the reader decodes with Pillow. The
+value conversions match the reference.
 """
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
 def read_rgb_image(path) -> np.ndarray:
@@ -36,14 +48,26 @@ def write_rgb_image(path, image: np.ndarray) -> None:
     """Write an [H, W, 3|4] float image in [0,1] as an 8-bit RGBA PNG.
 
     Round+clamp matches the reference (ref: image_io.cpp:138-143):
-    min(max(round(v*255), 0), 255).
+    min(max(round(v*255), 0), 255). `path` may also be a binary file
+    object; the codec is always PNG (ref: image_io.cpp writePNGImage).
     """
-    from PIL import Image as PILImage
-
     image = np.asarray(image, dtype=np.float32)
     if image.shape[-1] == 3:
         image = np.concatenate([image, np.ones_like(image[..., :1])], axis=-1)
     data = np.clip(np.round(image * 255.0), 0, 255).astype(np.uint8)
-    # File objects carry no extension; the codec is always PNG
-    # (ref: image_io.cpp writePNGImage).
-    PILImage.fromarray(data, mode="RGBA").save(path, format="PNG")
+    h, w = data.shape[:2]
+    # One filter-type byte (0: none) before each RGBA8 scanline.
+    rows = np.concatenate(
+        [np.zeros((h, 1), np.uint8), data.reshape(h, w * 4)], axis=1
+    )
+    png = (
+        _PNG_SIGNATURE
+        + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+        + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+        + _png_chunk(b"IEND", b"")
+    )
+    if hasattr(path, "write"):
+        path.write(png)
+    else:
+        with open(path, "wb") as f:
+            f.write(png)

@@ -2,7 +2,7 @@
 
 The reference's only observability is a mutex-serialized tile-progress
 callback (ref: include/PathTrace/worker.h:74-79, src/worker.cpp:354-360) and
-external google-benchmark counters. The TPU equivalents here:
+external google-benchmark counters. The equivalents here:
 
   * `trace_annotation` / `profile_to` — `jax.profiler` integration: XLA
     device traces viewable in TensorBoard/XProf.

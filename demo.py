@@ -31,22 +31,29 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--sharded", action="store_true",
                    help="fixed-spp SPMD render over all local devices")
-    p.add_argument("--cpu", action="store_true", help="force the CPU backend")
+    p.add_argument("--cpu", action="store_true",
+                   help="render on the CPU backend instead of the GPU")
     args = p.parse_args(argv)
 
     import jax
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    elif jax.devices()[0].platform != "gpu":
+        print(f"no GPU found (default device: {jax.devices()[0]}); "
+              "pass --cpu to render on the CPU", file=sys.stderr)
+        return 2
 
     import numpy as np
     import cpupathtrace_tpu as ptx
+    from cpupathtrace_tpu.utils.runtime import configure_compile_cache
     from cpupathtrace_tpu.models.scenes import (
         cornell_demo_camera,
         cornell_demo_options,
         cornell_demo_scene,
     )
 
+    configure_compile_cache()
     print(f"devices: {jax.devices()}", file=sys.stderr)
     t0 = time.time()
     scene = cornell_demo_scene(

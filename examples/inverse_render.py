@@ -1,6 +1,6 @@
 """Inverse rendering example: recover wall albedo and emitter radiance
 from a target image by gradient descent — the differentiable capability
-the C++ reference lacks entirely (BASELINE.json north-star config).
+the C++ reference lacks entirely.
 
 Renders a ground-truth Cornell box, perturbs the red accent wall's
 albedo, then recovers it with Adam on an unbiased image loss

@@ -57,3 +57,23 @@ def specular_box_scene(light_intensity: float = 1.0):
     b.add_sphere((-0.4, -0.3, 0.5), 0.4, mirror)
     b.add_sphere((0.45, -0.35, 0.45), 0.35, glass)
     return b.build(), mirror, glass
+
+
+EMSPHERE_CENTER = (0.0, 0.55, 0.5)
+EMSPHERE_RADIUS = 0.25
+
+
+def emissive_sphere_scene():
+    """The closed white box lit only by an emissive sphere
+    (golden_emsphere_32.raw, tests/golden/make_golden_lens.cpp)."""
+    b = SceneBuilder()
+    white = b.add_material(diffuse=(1, 1, 1, 1))
+    em = b.add_material(diffuse=(1, 1, 1, 1), emission=(2, 2, 2, 1))
+    b.add_triangles(make_plane((1, -1, -1), (-1, -1, 1), True), white)
+    b.add_triangles(make_plane((-1, 1, -1), (1, 1, 1), True), white)
+    b.add_triangles(make_plane((-1, -1, -1), (1, 1, -1), True), white)
+    b.add_triangles(make_plane((-1, -1, -1), (-1, 1, 1), True), white)
+    b.add_triangles(make_plane((1, -1, 1), (-1, 1, 1), True), white)
+    b.add_triangles(make_plane((1, -1, 1), (1, 1, -1), True), white)
+    b.add_sphere(EMSPHERE_CENTER, EMSPHERE_RADIUS, em)
+    return b.build()

@@ -24,8 +24,8 @@ def test_debug_checks_off_by_default(monkeypatch):
 
 
 def test_checked_trace_passes_on_healthy_scene():
-    """PTX_DEBUG=1 run of the checked wavefront on the box scene — the CI
-    exercise VERDICT asks for. Subprocess so the env flag is read fresh."""
+    """PTX_DEBUG=1 run of the checked wavefront on the box scene.
+    Subprocess so the env flag is read fresh."""
     code = """
 import os
 os.environ["PTX_DEBUG"] = "1"

@@ -94,7 +94,7 @@ def spec_setup():
 def test_specular_gradient_matches_finite_difference(spec_setup, which, channel):
     """mat_specular gradients flow through the glass-reflection and mirror
     bounce eval paths (ref: propagation.cpp:120-214) — FD parity under
-    common random numbers, the entries VERDICT r1 flagged as untested."""
+    common random numbers."""
     scene, cam, opts, key, target, mirror, glass = spec_setup
     mat = mirror if which == "mirror" else glass
     params = get_material_params(scene)
@@ -134,7 +134,7 @@ def test_inverse_rendering_recovers_specular_tint(spec_setup):
 
 def test_inverse_rendering_recovers_albedo(setup):
     """Gradient descent recovers a perturbed wall albedo (tiny version of
-    BASELINE.json config[3])."""
+    examples/inverse_render.py)."""
     scene, cam, opts, key, _ = setup
     true_params = get_material_params(scene)
     target = render_image_diff(scene, cam, opts, jax.random.PRNGKey(7), 16)

@@ -1,6 +1,6 @@
 """Geometry-parallel (primitive-sharded) intersection and rendering on the
 8-virtual-device CPU mesh — the TP/EP analog for scenes whose intersection
-tables exceed one chip's HBM (no reference analog: the reference shares one
+tables exceed one device's memory (no reference analog: the reference shares one
 Scene across its pthread pool, src/worker.cpp:364-387)."""
 import jax
 import jax.numpy as jnp
@@ -91,94 +91,3 @@ def test_gp_cluster_padding(setup, cpu_devices):
     assert sc.gp_axis == "gp"
     pad = sc.blk_prim[c:]
     assert bool((pad < 0).all())
-
-
-# ---------------------------------------------------------------------------
-# Fast path: the in-kernel traversal sharded over superclusters
-# ---------------------------------------------------------------------------
-
-@pytest.fixture(scope="module")
-def krn_setup(cpu_devices):
-    scene = bench_dragon_scene(dragon_tris=2000, accel="binned")
-    cam = bench_camera()
-    opts = RenderOptions(12, 12, 4, 4, epsilon=1e-3, max_depth=6)
-    return scene, cam, opts
-
-
-def test_krn_intersect_matches_oracle(krn_setup):
-    """The standalone kernel-traversal intersector (interpret mode off-TPU)
-    == the jnp binned oracle, bit-exact, including shadow-ray semantics."""
-    from cpupathtrace_tpu.accel.pallas_traverse import (
-        binned_intersect_ref,
-        krn_intersect,
-    )
-
-    scene, _, _ = krn_setup
-    o, d = _random_rays(512)
-    t_k, p_k = jax.jit(lambda o, d: krn_intersect(
-        scene, o, d, interpret=True))(o, d)
-    t_r, p_r = jax.jit(lambda o, d: binned_intersect_ref(scene, o, d))(o, d)
-    # The kernel's Plucker factorization matches the sweep's classic MT
-    # to ~1e-7 relative (accel/kernel_traverse.py module doc) — prim ids
-    # agree exactly on this generic scene, t to tolerance.
-    np.testing.assert_allclose(
-        np.asarray(t_k), np.asarray(t_r), rtol=1e-5, atol=1e-6
-    )
-    np.testing.assert_array_equal(np.asarray(p_k), np.asarray(p_r))
-    assert int((np.asarray(p_k) >= 0).sum()) > 100
-
-    lim = jnp.full(o.shape[0], 1.2, jnp.float32)
-    occ_k, pk2 = jax.jit(lambda o, d: krn_intersect(
-        scene, o, d, t_max=lim, any_hit=True, interpret=True))(o, d)
-    occ_r, pr2 = jax.jit(lambda o, d: binned_intersect_ref(
-        scene, o, d, t_max=lim, any_hit=True))(o, d)
-    np.testing.assert_array_equal(np.asarray(pk2) >= 0, np.asarray(pr2) >= 0)
-
-
-def test_gp_krn_intersect_exact(krn_setup, cpu_devices):
-    """Kernel-table sharding: per-shard in-kernel traversal + pmin combine
-    == the UNSHARDED in-kernel traversal, bit-exact (each (record, ray)
-    pair computes identical values on every shard; pruning order affects
-    only speed, and the generic scene has no exact-t cross-record ties)."""
-    from cpupathtrace_tpu.accel.pallas_traverse import krn_intersect
-    from cpupathtrace_tpu.parallel.geometry import (
-        shard_scene_kernel_geometry,
-    )
-
-    scene, _, _ = krn_setup
-    mesh = make_gp_mesh(cpu_devices[:4])
-    sc = shard_scene_kernel_geometry(scene, 4)
-    assert sc.krn_records.ndim == 4 and sc.krn_records.shape[0] == 4
-    o, d = _random_rays(512)
-
-    fn = jax.shard_map(
-        lambda s, o, d: scene_intersect(s, o, d),
-        mesh=mesh,
-        in_specs=(gp_in_specs(sc), P(), P()),
-        out_specs=(P(), P()),
-        check_vma=False,
-    )
-    t_gp, p_gp = jax.jit(fn)(sc, o, d)
-    t_ref, p_ref = jax.jit(lambda o, d: krn_intersect(
-        scene, o, d, interpret=True))(o, d)
-    np.testing.assert_array_equal(np.asarray(t_gp), np.asarray(t_ref))
-    np.testing.assert_array_equal(np.asarray(p_gp), np.asarray(p_ref))
-    assert int((np.asarray(p_gp) >= 0).sum()) > 100
-
-
-def test_gp_krn_render_shard_invariant(krn_setup, cpu_devices):
-    """Full wavefront render through the kernel-sharded fast path is
-    bit-identical on 1-way and 2-way shardings."""
-    from cpupathtrace_tpu.parallel.geometry import (
-        render_gp,
-        shard_scene_kernel_geometry,
-    )
-
-    scene, cam, opts = krn_setup
-    sc1 = shard_scene_kernel_geometry(scene, 1)
-    sc2 = shard_scene_kernel_geometry(scene, 2)
-    img1 = render_gp(sc1, cam, opts, make_gp_mesh(cpu_devices[:1]), seed=3)
-    img2 = render_gp(sc2, cam, opts, make_gp_mesh(cpu_devices[:2]), seed=3)
-    np.testing.assert_array_equal(img1, img2)
-    assert img1[..., 3].mean() == 1.0
-    assert img1[..., :3].mean() > 0.005

@@ -181,3 +181,26 @@ class TestTriangle:
         # t returned raw; caller discards negatives).
         t = self._hit([0.0, 0.0, 3.0], [0.0, 0.0, 1.0])
         np.testing.assert_allclose(t, -3.0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("accel", ["dense", "bvh"])
+def test_scene_intersect_reports_the_winners_exact_t(accel):
+    """The layouts test candidates with the backend's division; the winning
+    hit's t is recomputed with the correctly rounded reciprocal, so a shadow
+    ray's `t < t_max` decision rounds as in the reference."""
+    import dataclasses
+
+    from cpupathtrace_tpu.ops.intersect import _exact_t, intersect_prim, scene_intersect
+    from tests.layouts_util import mixed_scene, rays
+
+    scene = mixed_scene("bvh")
+    scene = dataclasses.replace(scene, accel=accel) if accel == "dense" else scene
+    o, d = rays(3)
+    t, p = scene_intersect(scene, o, d)
+    hit = np.asarray(p) >= 0
+    assert hit.mean() > 0.5
+    t_ex = intersect_prim(scene, jnp.maximum(p, 0), o, d, exact=True)
+    np.testing.assert_array_equal(np.asarray(t)[hit], np.asarray(t_ex)[hit])
+    # A layout t off by a little is replaced; misses keep their -1.
+    t2 = np.asarray(_exact_t(scene, o, d, jnp.where(p >= 0, t + 1e-3, t), p))
+    np.testing.assert_array_equal(t2, np.asarray(t))

@@ -57,6 +57,15 @@ def render_fixed(scene, cam, size, spp, seed=3, max_depth=40, chunk=64):
     return img.reshape(size, size, 4).astype(np.float32)
 
 
+def render_emissive_sphere():
+    """The emissive-sphere golden's scene and camera, 32x32 @ 256 spp, on
+    JAX's default device."""
+    from tests.scenes_util import emissive_sphere_scene
+
+    cam = make_camera((0, 0, 0), (0, 0, 0.9), (0, 1, 0), 1.0, 1.0, 1.0)
+    return render_fixed(emissive_sphere_scene(), cam, 32, 256, seed=13)
+
+
 def assert_quantile_parity(ours, golden, qs=(0.25, 0.5, 0.75), rtol=0.08):
     for q in qs:
         a = float(np.quantile(ours[..., :3], q))
@@ -180,22 +189,8 @@ def test_emissive_sphere_parity():
     sphere surface sampling and the area->solid-angle pdf conversion
     (scene.cpp:183-289, object.cpp:101-116). Measured rel err at 256 spp:
     <=4.5% on central quantiles."""
-    from cpupathtrace_tpu.scene.geometry import make_plane
-
     golden = read_golden("golden_emsphere_32.raw")
-    b = SceneBuilder()
-    white = b.add_material(diffuse=(1, 1, 1, 1))
-    em = b.add_material(diffuse=(1, 1, 1, 1), emission=(2, 2, 2, 1))
-    b.add_triangles(make_plane((1, -1, -1), (-1, -1, 1), True), white)
-    b.add_triangles(make_plane((-1, 1, -1), (1, 1, 1), True), white)
-    b.add_triangles(make_plane((-1, -1, -1), (1, 1, -1), True), white)
-    b.add_triangles(make_plane((-1, -1, -1), (-1, 1, 1), True), white)
-    b.add_triangles(make_plane((1, -1, 1), (-1, 1, 1), True), white)
-    b.add_triangles(make_plane((1, -1, 1), (1, 1, -1), True), white)
-    b.add_sphere((0.0, 0.55, 0.5), 0.25, em)
-    scene = b.build()
-    cam = make_camera((0, 0, 0), (0, 0, 0.9), (0, 1, 0), 1.0, 1.0, 1.0)
-    ours = render_fixed(scene, cam, 32, 256, seed=13)
+    ours = render_emissive_sphere()
     np.testing.assert_array_equal(ours[..., 3], golden[..., 3])
     assert_quantile_parity(ours, golden, qs=(0.25, 0.5, 0.75), rtol=0.10)
 

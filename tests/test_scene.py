@@ -119,7 +119,7 @@ def test_empty_scene_builds_and_misses():
 
 
 def test_cluster_matches_dense_mixed():
-    """Two-level cluster accel (TPU-native layout) must agree with dense."""
+    """Two-level cluster accel must agree with dense."""
     from cpupathtrace_tpu.ops.intersect import cluster_intersect
     from cpupathtrace_tpu.scene.geometry import HostTriangle
 
@@ -258,8 +258,8 @@ def test_triangle_batch_build_bit_identical():
 def test_cluster_cut_matches_sequential_reference():
     """The level-swept vectorized cluster cut (accel/cluster.py) emits
     exactly the clusters of the original sequential walk: same DFS order,
-    same members, same bounds (the supercluster grouping in the megakernel
-    tables relies on the DFS emission order for spatial coherence)."""
+    same members, same bounds (DFS emission order keeps spatially adjacent
+    clusters adjacent in the tables)."""
     from cpupathtrace_tpu.accel.build import build_bvh
     from cpupathtrace_tpu.accel.cluster import build_cluster_bvh
 
@@ -314,52 +314,3 @@ def test_cluster_cut_matches_sequential_reference():
                 assert np.array_equal(cl.members, m_r), (n, cs, native)
                 assert np.array_equal(cl.c_lo, lo_r), (n, cs, native)
                 assert np.array_equal(cl.c_hi, hi_r), (n, cs, native)
-
-
-def test_sah_clusters_cover_and_bound():
-    """build_sah_clusters: exact coverage, size cap, tight member bounds
-    (accel/cluster.py — the experimental PTX_KRN_SAH=1 clustering)."""
-    from cpupathtrace_tpu.accel.cluster import build_sah_clusters
-
-    rng = np.random.default_rng(3)
-    n = 5000
-    c = rng.normal(size=(n, 3)).astype(np.float32)
-    h = np.abs(rng.normal(size=(n, 3))).astype(np.float32) * 0.02
-    lo, hi = c - h, c + h
-    m, c_lo, c_hi = build_sah_clusters(lo, hi, cluster_size=64)
-    ids = m[m >= 0]
-    assert np.sort(ids).tolist() == list(range(n))
-    assert ((m >= 0).sum(axis=1) <= 64).all()
-    v = m >= 0
-    mi = np.maximum(m, 0)
-    np.testing.assert_allclose(
-        c_lo, np.where(v[..., None], lo[mi], np.inf).min(axis=1)
-    )
-    np.testing.assert_allclose(
-        c_hi, np.where(v[..., None], hi[mi], -np.inf).max(axis=1)
-    )
-    # Degenerate centroids (identical boxes) still split by median.
-    m2, _, _ = build_sah_clusters(
-        np.zeros((300, 3), np.float32), np.ones((300, 3), np.float32), 64
-    )
-    assert np.sort(m2[m2 >= 0]).tolist() == list(range(300))
-
-
-def test_krn_cull_modes_static():
-    """krn_cull_mode / krn_big_cull_mode reflect partition cull uniformity
-    (scene.py build; consumed as static pair-test specializations)."""
-    from tests.scenes_util import inward_box_scene
-
-    s = inward_box_scene()  # small dense scene, uniform cull
-    culls = np.asarray(s.tri_cull[: s.n_tri])
-    expect = 0 if not culls.any() else (1 if culls.all() else -1)
-    assert s.krn_big_cull_mode == expect
-
-    from cpupathtrace_tpu.models.scenes import bench_dragon_scene
-
-    d = bench_dragon_scene(dragon_tris=1200, accel="binned")
-    # The stand-in dragon is loaded cull_backface=False -> cluster records
-    # are cull-free; the big partition is genuinely mixed (uncull walls +
-    # culled emissive ceiling tris).
-    assert d.krn_cull_mode == 0
-    assert d.krn_big_cull_mode == -1

@@ -19,7 +19,7 @@ from cpupathtrace_tpu.models.scenes import bench_dragon_scene
 
 @pytest.fixture(scope="module")
 def scene():
-    # Binned build so the in-kernel krn_* tiers are populated too.
+    # Binned build so the big-partition and cluster tables are populated.
     return bench_dragon_scene(dragon_tris=5000, accel="binned")
 
 
@@ -106,8 +106,17 @@ def test_cached_build_hits_and_misses(scene, tmp_path):
 
 
 def test_cache_key_sensitivity(monkeypatch):
+    from cpupathtrace_tpu.scene import cache as cache_mod
+
     k0 = build_cache_key("mesh.obj", 100)
     assert k0 == build_cache_key("mesh.obj", 100)
     assert k0 != build_cache_key("mesh.obj", 101)
-    monkeypatch.setenv("PTX_KRN_CLUSTER", "128")
+    assert k0 != build_cache_key("mesh.obj", 100, "binned")
+    # Environment knobs no longer change packed tables, so they do not
+    # key the cache; the format version does.
+    monkeypatch.setenv("PTX_ADAPTIVE_FUSE", "1")
+    assert k0 == build_cache_key("mesh.obj", 100)
+    monkeypatch.setattr(
+        cache_mod, "_FORMAT_VERSION", cache_mod._FORMAT_VERSION + 1
+    )
     assert k0 != build_cache_key("mesh.obj", 100)

@@ -1,8 +1,6 @@
-"""Binned cluster-major traversal (accel/pallas_traverse.py) exactness.
-
-The Pallas kernels run in interpret mode on CPU; the oracle is the pure-jnp
-reference path (dense big-set + sweep over the cluster blocks), itself
-equivalent to brute-force dense intersection (tested in test_binned.py).
+"""Binned layout (dense big-triangle set + sweep over the cluster blocks,
+ops/intersect.py binned_intersect_ref): partition, exactness against
+brute-force dense intersection, and the builder's cluster coarsening.
 Nearest-hit comparisons accept prim mismatches only at exact t ties (two
 triangles sharing the winning distance are both correct answers, matching
 the reference's traversal-order-dependent tie behavior).
@@ -15,12 +13,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from cpupathtrace_tpu.accel.pallas_traverse import (
-    binned_intersect_ref,
-    binned_intersect_tpu,
-)
 from cpupathtrace_tpu.models.scenes import bench_dragon_scene
-from cpupathtrace_tpu.ops.intersect import dense_intersect, scene_intersect
+from cpupathtrace_tpu.ops.intersect import (
+    binned_intersect_ref,
+    dense_intersect,
+    scene_intersect,
+)
 
 
 @pytest.fixture(scope="module")
@@ -57,9 +55,9 @@ def test_builder_partition(dragon_scene):
     s = dragon_scene
     assert s.accel == "binned"
     assert s.n_big == 14  # 12 box triangles + 2 light-panel triangles
-    assert s.trv_bounds.shape[0] >= 2
-    # Cluster-set root bounds are tight around the dragon, not the room.
-    assert float(s.root_hi[1]) < 0.0
+    assert s.blk_lo.shape[0] >= 2
+    # Cluster bounds are tight around the dragon, not the room.
+    assert float(np.asarray(s.blk_hi)[:, 1].max()) < 0.0
     # Every triangle is exactly once in (big set) + (cluster blocks).
     blk = np.asarray(s.blk_prim)
     big = np.asarray(s.big_prim)
@@ -76,55 +74,8 @@ def test_ref_path_matches_dense(dragon_scene):
     assert int(np.sum(np.asarray(p_d) >= 0)) > 100
 
 
-@pytest.mark.parametrize("m", [1, 4])
-@pytest.mark.parametrize("inside", [False, True])
-def test_kernels_match_oracle(dragon_scene, m, inside):
-    """m=1 forces the multi-round exactness machinery on every ray."""
-    o, d = _rays(768, 1, inside=inside)
-    t_r, p_r = binned_intersect_ref(dragon_scene, o, d)
-    t_k, p_k = binned_intersect_tpu(
-        dragon_scene, o, d, m=m, batch=1024, interpret=True
-    )
-    assert _agree(t_k, p_k, t_r, p_r)
-
-
-def test_t_max_and_any_hit(dragon_scene):
-    o, d = _rays(768, 2, inside=True)
-    rng = np.random.default_rng(3)
-    tm = jnp.asarray(rng.uniform(0.05, 1.5, 768).astype(np.float32))
-    t_r, p_r = binned_intersect_ref(dragon_scene, o, d, t_max=tm)
-    t_k, p_k = binned_intersect_tpu(
-        dragon_scene, o, d, t_max=tm, any_hit=True, batch=1024, interpret=True
-    )
-    p_k, p_r = np.asarray(p_k), np.asarray(p_r)
-    # Occlusion (hit-existence) agrees; any-hit may return a farther hit
-    # but it must be a real one inside the bound.
-    assert np.array_equal(p_k >= 0, p_r >= 0)
-    assert np.all((p_k < 0) | (np.asarray(t_k) < np.asarray(tm)))
-
-
-def test_live_mask(dragon_scene):
-    o, d = _rays(768, 4, inside=True)
-    live = jnp.asarray(np.random.default_rng(5).random(768) < 0.5)
-    t_r, p_r = binned_intersect_ref(dragon_scene, o, d)
-    t_k, p_k = binned_intersect_tpu(
-        dragon_scene, o, d, live=live, batch=1024, interpret=True
-    )
-    assert _agree(t_k, p_k, t_r, p_r, mask=live)
-
-
-def test_multi_batch(dragon_scene):
-    """Rays spanning several fixed-size batches resolve identically."""
-    o, d = _rays(3072, 6)
-    t_r, p_r = binned_intersect_ref(dragon_scene, o, d)
-    t_k, p_k = binned_intersect_tpu(
-        dragon_scene, o, d, batch=1024, interpret=True
-    )
-    assert _agree(t_k, p_k, t_r, p_r)
-
-
 def test_scene_intersect_dispatch(dragon_scene):
-    """accel='binned' routes through scene_intersect off-TPU (ref path)."""
+    """accel='binned' routes through scene_intersect to the binned path."""
     o, d = _rays(256, 7)
     t, p = scene_intersect(dragon_scene, o, d)
     t_r, p_r = binned_intersect_ref(dragon_scene, o, d)
@@ -166,24 +117,17 @@ def test_wavefront_render_binned_matches_sweep():
 
 
 def test_giant_scene_auto_coarsens(monkeypatch):
-    """Beyond the SMEM cluster budget the builder grows cluster_size until
-    the cut fits, and beyond the pair-record budget it skips the in-kernel
-    megakernel tables — the scene still intersects exactly through the
-    binned wavefront (the 7.2M-triangle real-dragon regime, scaled down by
-    shrinking the budgets)."""
-    from cpupathtrace_tpu.accel import pallas_traverse
-    from cpupathtrace_tpu.integrator.pallas_megakernel import (
-        megakernel_supported,
-    )
+    """Beyond the cluster budget (MAX_CLUSTERS) the builder grows
+    cluster_size until the cut fits, and the scene still intersects
+    exactly (the 7.2M-triangle real-dragon regime, scaled down by shrinking
+    the budget)."""
+    from cpupathtrace_tpu.scene import scene as scene_mod
 
-    monkeypatch.setattr(pallas_traverse, "MAX_CLUSTERS", 16)
-    monkeypatch.setenv("PTX_KRN_MAX_TRIS", "1000")
+    monkeypatch.setattr(scene_mod, "MAX_CLUSTERS", 16)
     scene = bench_dragon_scene(dragon_tris=5000, accel="binned")
     assert scene.accel == "binned"
-    assert scene.trv_bounds.shape[0] <= 16
+    assert scene.blk_lo.shape[0] <= 16
     assert scene.cluster_size >= 5000 // 16
-    assert scene.krn_cluster_size == 0  # records skipped -> no megakernel
-    assert not megakernel_supported(scene)
 
     ref = bench_dragon_scene(dragon_tris=5000, accel="sweep")
     o, d = _rays(512, 11, inside=True)
